@@ -1,4 +1,4 @@
-"""ahsoka_tpu — a TPU-native haplotype-assembly engine.
+"""ahsoka_tpu — an accelerator-native haplotype-assembly engine.
 
 A brand-new framework (JAX/XLA/pjit + Pallas, with native C++ host components)
 that phases diploid and polyploid genomes from a GFA assembly graph plus GAF
@@ -9,13 +9,13 @@ Pipeline (reference: /root/reference/src/polyassembly.cpp:22-176):
 
     GFA graph ──> bubble/chain detection ──> allele-path enumeration
                                                     │
-    GAF reads ──> per-chain projection (read × bubble allele matrix)   [TPU]
+    GAF reads ──> per-chain projection (read × bubble allele matrix) [device]
                                                     │
-                  pairwise read scoring (MXU matmuls)                  [TPU]
+                  pairwise read scoring (matmuls)                    [device]
                                                     │
                   cluster editing (host heuristic / native C++)
                                                     │
-                  haplotype-threading DP (Pallas min-plus scan)        [TPU]
+                  haplotype-threading DP (min-plus scan / GPU kernel) [device]
                                                     │
                   haplotype emission (oriented node walks)
 

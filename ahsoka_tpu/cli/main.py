@@ -25,9 +25,9 @@ from ahsoka_tpu.config import PhasingConfig
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ahsoka-tpu",
-        description=("TPU-native haplotype assembly for diploid and "
-                     "polyploid genomes from assembly graphs (GFA) and "
-                     "long-read alignments (GAF)"))
+        description=("Accelerator-native haplotype assembly for diploid "
+                     "and polyploid genomes from assembly graphs (GFA) "
+                     "and long-read alignments (GAF)"))
     sub = parser.add_subparsers(dest="command", required=True)
 
     phase = sub.add_parser("phase", help="full phasing pipeline")
@@ -56,6 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="record per-chain failures and continue")
     phase.add_argument("--profile", metavar="DIR", default=None,
                        help="capture a jax.profiler trace into DIR")
+    phase.add_argument("--no-debug-readsets", action="store_true",
+                       help="skip the per-chain -readset debug dumps; the "
+                            "GAF is then read by the columnar parser "
+                            "(large inputs)")
     phase.add_argument("--no-genotypes", action="store_true",
                        help="disable the genotype conformity cost")
     phase.add_argument("--genotype-prior",
@@ -130,6 +134,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             PhasingConfig(), ploidy=args.ploidy, backend=args.backend,
             ploidy_map=ploidy_map,
             use_genotypes=not args.no_genotypes,
+            debug_readset_files=not args.no_debug_readsets,
             genotype_prior=args.genotype_prior,
             max_coverage=args.max_coverage,
             data_shards=args.data_shards,

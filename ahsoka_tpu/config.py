@@ -98,7 +98,7 @@ class PhasingConfig:
     compat_std_ordering: bool = True
 
     # --- execution ---
-    backend: str = "jax"               # "jax" (TPU tensor programs) | "host"
+    backend: str = "jax"               # "jax" (device tensor programs) | "host"
     # thread all chains with one batched device DP program per chain group
     # (jax backend); False runs the DP chain by chain
     batch_dp: bool = True

@@ -2,9 +2,9 @@
 
 The distributed model (SURVEY.md §2c): the graph / bubble-chain index /
 allele-path tables are small and replicated per host; GAF read batches are
-the data-parallel axis; chains are the task-parallel axis.  Collectives
-ride ICI within a slice (XLA inserts them from shardings; the only explicit
-collective is the min-merge of per-shard projection key tables).
+the data-parallel axis; chains are the task-parallel axis.  XLA inserts
+the collectives from shardings (NCCL between GPUs); the only explicit
+collective is the min-merge of per-shard projection key tables.
 
 Axes:
 - "data":  alignment (read) sharding for projection/scoring partials
@@ -30,25 +30,27 @@ CHAIN_AXIS = "chain"
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize from args or env (no-op single-process)."""
+    """jax.distributed.initialize from args or env (no-op single-process).
+
+    On a GPU host each process drives one card, chosen by its process id
+    (``local_device_ids``); without it every process would claim every
+    card of the host."""
     if num_processes is None:
         num_processes = int(os.environ.get("AHSOKA_NUM_PROCESSES", "1"))
     if num_processes <= 1:
         return
-    try:
-        # CPU backends need an explicit cross-process collectives
-        # implementation (the multi-host CPU simulation, SURVEY.md §4);
-        # TPU backends ignore this and use ICI/DCN.
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:                    # pragma: no cover - older jax
-        pass
+    if process_id is None:
+        process_id = int(os.environ.get("AHSOKA_PROCESS_ID", "0"))
+    # CPU clients need an explicit cross-process collectives
+    # implementation (the multi-process CPU simulation, SURVEY.md §4);
+    # GPU clients use NCCL over NVLink and ignore it.  local_device_ids
+    # only sets the visible CUDA/ROCm devices.
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator
         or os.environ.get("AHSOKA_COORDINATOR", "localhost:12345"),
-        num_processes=num_processes,
-        process_id=process_id
-        if process_id is not None
-        else int(os.environ.get("AHSOKA_PROCESS_ID", "0")))
+        num_processes=num_processes, process_id=process_id,
+        local_device_ids=[process_id])
 
 
 def put_global(x, mesh: Mesh, spec) -> jax.Array:

@@ -10,11 +10,11 @@ Sharding layout (SURVEY.md §2c):
   Path tables / vocab are replicated.
 - **Scoring** — read pairs tile over ``data`` (row blocks of the pair
   matrix), positions replicated.
-- **Threading DP** — independent chains batch over the ``chain`` axis
-  (vmapped scan, one chain per lane).
+- **Threading DP** — independent chains batch over the ``chain`` axis;
+  each shard runs the method the single device would.
 
-The same functions drive the single-chip path (mesh of size 1), the CPU
-dry-run (xla_force_host_platform_device_count), and real pod slices.
+The same functions drive the single-device path (mesh of size 1), the
+CPU dry-run (xla_force_host_platform_device_count), and several GPUs.
 """
 
 from __future__ import annotations
@@ -33,7 +33,30 @@ except ImportError:  # pragma: no cover - older jax
 
 from ahsoka_tpu.dist.mesh import CHAIN_AXIS, DATA_AXIS, put_global
 from ahsoka_tpu.project.device import NO_MATCH, containment_keys_core
-from ahsoka_tpu.thread.dp_jax import dp_forward_core
+from ahsoka_tpu.thread.dp_jax import dp_forward_core, group_states_core
+
+
+@functools.lru_cache(maxsize=64)
+def _sharded_keys_fn(mesh, num_bubbles: int, num_names: int, chunk: int,
+                     alleles_per_bubble: int):
+    """Jitted data-sharded projection program, cached per (mesh, statics)
+    so a run's per-chain calls re-trace only on a new shape."""
+
+    def local(pf, pi, plf, pli, pb, pkb, nodes, name_id, ident, gate):
+        full_k, part_k, gate_k = containment_keys_core(
+            pf, pi, plf, pli, pb, pkb, nodes, name_id, ident,
+            gate, num_bubbles=num_bubbles, num_names=num_names,
+            chunk=chunk, alleles_per_bubble=alleles_per_bubble)
+        # first-match keys merge by minimum across read shards
+        merge = lambda x: jax.lax.pmin(x, DATA_AXIS)
+        return merge(full_k), merge(part_k), merge(gate_k)
+
+    return jax.jit(shard_map(
+        local, mesh=mesh,
+        in_specs=(P(), P(), P(), P(), P(), P(),
+                  P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS), P()),
+        out_specs=(P(), P(), P()),
+        check_vma=False))
 
 
 def sharded_containment_keys(mesh, path_onehot_full, path_onehot_inner,
@@ -44,30 +67,18 @@ def sharded_containment_keys(mesh, path_onehot_full, path_onehot_inner,
                              alleles_per_bubble: int = 0):
     """Projection with alignments sharded over the data axis; returns
     replicated [B, N] key tables (min-merged across shards)."""
-
-    def local(pf, pi, plf, pli, pb, pkb, nodes, name_id, ident):
-        full_k, part_k, gate_k = containment_keys_core(
-            pf, pi, plf, pli, pb, pkb, nodes, name_id, ident,
-            gate_value, num_bubbles=num_bubbles, num_names=num_names,
-            chunk=chunk, alleles_per_bubble=alleles_per_bubble)
-        # first-match keys merge by minimum across read shards
-        merge = lambda x: jax.lax.pmin(x, DATA_AXIS)
-        return merge(full_k), merge(part_k), merge(gate_k)
-
-    fn = shard_map(
-        local, mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P(), P(),
-                  P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
-        out_specs=(P(), P(), P()),
-        check_vma=False)
+    import numpy as np
+    fn = _sharded_keys_fn(mesh, num_bubbles, num_names, chunk,
+                          alleles_per_bubble)
     # explicit global placement so the same call works when the mesh
-    # spans multiple processes (multi-host CPU simulation / pod slices)
+    # spans multiple processes
     repl = [put_global(a, mesh, P()) for a in
             (path_onehot_full, path_onehot_inner, path_len_full,
              path_len_inner, path_bubble, path_key_base)]
     shrd = [put_global(a, mesh, P(DATA_AXIS)) for a in
             (aln_vocab_nodes, aln_name_id, aln_identity)]
-    return jax.jit(fn)(*repl, *shrd)
+    gate = put_global(np.float32(gate_value), mesh, P())
+    return fn(*repl, *shrd, gate)
 
 
 @functools.lru_cache(maxsize=64)
@@ -108,73 +119,21 @@ def sharded_score_pairs(mesh, alleles, scalar, *, num_alleles: int,
     return fn(rows_g, full_g, scalar_g)
 
 
-def batched_dp_forward(candidates, num_candidates, coverage, consensus,
-                       genotypes, counts_table, valid_table, ploidy: int,
-                       num_alleles: int, switch_cost, affine_cost, cov_w,
-                       geno_w):
-    """vmap of the DP over a leading chain-batch axis."""
-    fn = functools.partial(dp_forward_core, ploidy=ploidy,
-                           num_alleles=num_alleles,
-                           switch_cost=switch_cost,
-                           affine_cost=affine_cost, cov_w=cov_w,
-                           geno_w=geno_w)
-    return jax.vmap(
-        lambda ca, nc, co, cs, ge: fn(ca, nc, co, cs, ge, counts_table,
-                                      valid_table)
-    )(candidates, num_candidates, coverage, consensus, genotypes)
-
-
-def sharded_dp_forward(mesh, candidates, num_candidates, coverage,
-                       consensus, genotypes, counts_table, valid_table,
-                       ploidy: int, num_alleles: int, switch_cost,
-                       affine_cost, cov_w, geno_w):
-    """Chain-batched DP with the batch sharded over the chain axis."""
+def sharded_thread_states(mesh, candidates, num_candidates, coverage,
+                          consensus, genotypes, counts_table, valid_table,
+                          **statics):
+    """Chain-sharded threading DP: the chain batch shards over the chain
+    axis and every shard threads its chains with
+    ``dp_jax.group_states_core`` under the same ``statics`` (method
+    included), so a multi-device run threads exactly as a single
+    device does.  Returns the [C, P] chain-sharded state matrix; the caller
+    pads C to a multiple of the chain-axis size."""
 
     def local(ca, nc, co, cs, ge):
         # tables embed as jit constants (host np input stays mesh-agnostic)
-        return batched_dp_forward(ca, nc, co, cs, ge,
-                                  jnp.asarray(counts_table),
-                                  jnp.asarray(valid_table),
-                                  ploidy, num_alleles,
-                                  switch_cost, affine_cost, cov_w, geno_w)
-
-    spec = P(CHAIN_AXIS)
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=(spec, spec, spec, spec, spec),
-                   out_specs=(spec, spec), check_vma=False)
-    args = [put_global(a, mesh, spec) for a in
-            (candidates, num_candidates, coverage, consensus, genotypes)]
-    return jax.jit(fn)(*args)
-
-
-def sharded_thread_states(mesh, candidates, num_candidates, coverage,
-                          consensus, genotypes, counts_table, valid_table,
-                          *, ploidy: int, num_alleles: int, switch_cost,
-                          affine_cost, cov_w, geno_w,
-                          kernel: str = "streamed"):
-    """Chain-sharded threading DP whose shard_map body runs the PALLAS
-    kernels (diploid superblock or position-streaming), so a multi-chip
-    run keeps the single-chip kernel speedup instead of forfeiting it to
-    the XLA scan (VERDICT r2 item 4).  Returns the [C, P] chain-sharded
-    state matrix (forward + backtrace run per shard; states are
-    bit-identical to the scan path — the kernels are parity-tested).
-
-    The caller pads the chain axis so every shard's batch satisfies the
-    kernel's chain multiple (128 streamed / 1024 diploid)."""
-    from ahsoka_tpu.thread.dp_pallas import (thread_batch_pallas_diploid,
-                                             thread_batch_pallas_streamed)
-
-    fn_kernel = (thread_batch_pallas_diploid if kernel == "diploid"
-                 else thread_batch_pallas_streamed)
-
-    def local(ca, nc, co, cs, ge):
-        st, _ = fn_kernel(
-            ca, nc, co, cs, ge, jnp.asarray(counts_table),
-            jnp.asarray(valid_table), ploidy=ploidy,
-            num_alleles=num_alleles, switch_cost=float(switch_cost),
-            affine_cost=float(affine_cost), cov_w=float(cov_w),
-            geno_w=float(geno_w))
-        return st
+        return group_states_core(ca, nc, co, cs, ge,
+                                 jnp.asarray(counts_table),
+                                 jnp.asarray(valid_table), **statics)
 
     spec = P(CHAIN_AXIS)
     fn = shard_map(local, mesh=mesh, in_specs=(spec,) * 5,
@@ -190,7 +149,7 @@ def make_fused_phase_step(num_bubbles: int, num_names: int, chunk: int,
     """Build a single-device jittable forward step over all three device
     stages (projection keys -> pair scores -> DP forward) with static
     sizes closed over.  This is the compile-check entry point
-    (__graft_entry__.entry): one function exercising the MXU containment
+    (__graft_entry__.entry): one function exercising the containment
     matmul, the scoring matmuls, and the min-plus scan."""
     from ahsoka_tpu.score.device import _score_kernel
 

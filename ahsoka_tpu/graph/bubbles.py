@@ -24,8 +24,8 @@ bubble ids, and inner-node order all feed the byte-exact output files:
   swept nodes) terminates the chain without emitting (src/graph.cpp:481-482).
 
 The sweep itself is cheap, control-flow-heavy host work on a graph that is
-replicated per host in the distributed setup (SURVEY.md §2c); the TPU tensor
-programs start downstream at projection.
+replicated per host in the distributed setup (SURVEY.md §2c); the device
+tensor programs start downstream at projection.
 """
 
 from __future__ import annotations

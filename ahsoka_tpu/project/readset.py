@@ -1,6 +1,6 @@
 """Readset construction: project alignments onto bubble positions.
 
-This is the host-exact oracle for the projection stage (the TPU tensor
+This is the host-exact oracle for the projection stage (the device tensor
 program in project/device.py is cross-checked against it).  Behavior matched
 from src/alignmentstoreadset.cpp:55-304 and the WhatsHap Read/ReadSet call
 sites it uses:

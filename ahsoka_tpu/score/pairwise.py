@@ -7,7 +7,7 @@ allele agreement counts with locally estimated error/allele rates.
 
 This module is a fresh derivation of that score with the math arranged as
 *position-weighted matmuls*, so the identical formulation runs as the host
-oracle (numpy) and as an MXU tensor program (score/device.py):
+oracle (numpy) and as a device tensor program (score/device.py):
 
 For reads i, j overlapping in o >= min_overlap positions:
 
@@ -26,8 +26,8 @@ matmuls over the (reads x positions[ x alleles]) one-hot projections:
 
     S = (M .* w_dis) @ M^T + sum_a (O_a .* (w_agree - w_dis)) @ O_a^T
 
-with M the coverage mask and O the allele one-hot — exactly the shape the
-MXU wants (SURVEY.md §7 layer 4).
+with M the coverage mask and O the allele one-hot — plain matmuls
+(SURVEY.md §7 layer 4).
 """
 
 from __future__ import annotations

@@ -51,7 +51,7 @@ as ``config.score_mode = "fresh"`` (score/pairwise.py).
 Everything factorises into (reads x positions) matmuls -- overlap,
 agreement, and the per-pair sum of p_d(p) over shared positions -- so
 the identical formulation runs as this host oracle (numpy, float64) and
-as the MXU tensor program in score/device.py.
+as the device tensor program in score/device.py.
 """
 
 from __future__ import annotations

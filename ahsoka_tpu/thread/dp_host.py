@@ -22,7 +22,7 @@ haplotype row keeps its cluster whenever possible (the threader's
 row-continuity pass) — emission indexes ``path[j][i]`` per haplotype i.
 
 This oracle is the ground truth for the vectorised device DP
-(thread/dp_jax.py, ops/minplus Pallas kernel); tests also validate it
+(thread/dp_jax.py); tests also validate it
 against brute-force enumeration on tiny instances.
 """
 

@@ -1,5 +1,5 @@
 // Sequential haplotype-threading DP — the native single-core baseline the
-// TPU DP (ahsoka_tpu/thread/dp_jax.py, ops/minplus) is benchmarked against.
+// device DP (ahsoka_tpu/thread/dp_jax.py) is benchmarked against.
 //
 // Implements the same cost model as the Python/JAX pipeline (coverage
 // deviation + genotype conformity node costs; switch + affine transition

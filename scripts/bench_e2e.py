@@ -155,7 +155,9 @@ def main() -> int:
     ap.add_argument("--workdir", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "benchdata"))
-    ap.add_argument("--outstem", default="/tmp/ahsoka_e2e/run")
+    ap.add_argument("--outstem", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "benchdata", "e2e", "run"))
     ap.add_argument("--ploidy", type=int, default=None)
     ap.add_argument("--max-coverage", type=int, default=64)
     ap.add_argument("--threads", type=int, default=0,

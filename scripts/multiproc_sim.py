@@ -1,5 +1,5 @@
 """Multi-process distributed execution of the full phase pipeline (CPU
-simulation of a multi-host TPU slice; SURVEY.md §4 item 3).
+simulation of a multi-host run; SURVEY.md §4 item 3).
 
 Two layouts:
 
@@ -276,7 +276,8 @@ def main() -> int:
     ap.add_argument("--gfa")
     ap.add_argument("--gaf")
     ap.add_argument("--outstem")
-    ap.add_argument("--workdir", default="/tmp/ahsoka_multiproc")
+    ap.add_argument("--workdir",
+                    default=os.path.join(_REPO, "benchdata", "multiproc"))
     args = ap.parse_args()
     if args.child:
         return run_child(args)

@@ -194,7 +194,7 @@ def main() -> int:
     ap.add_argument("--markdown", action="store_true")
     ap.add_argument("--platform", default="cpu",
                     choices=["cpu", "default"],
-                    help="cpu (default) keeps the study off the TPU — "
+                    help="cpu (default) keeps the study off the GPU — "
                          "it measures algorithmic divergence, and must "
                          "not contend with benchmark runs")
     args = ap.parse_args()

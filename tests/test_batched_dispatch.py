@@ -1,120 +1,96 @@
-"""The batched-threading kernel dispatch (thread_chains_batched): on TPU
-the product path routes diploid batches to the superblock kernel and
-polyploid batches to the streaming kernel.  These tests force that
-dispatch on CPU (Pallas interpret mode + patched backend probe) and
-assert the haplotype paths are identical to the XLA-scan path the CPU
-normally takes — the same parity the TPU suite (AHSOKA_TEST_TPU=1)
-checks on hardware."""
+"""The batched-threading dispatch (thread_chains_batched) and its one
+selection point (select_dp_method): every chain group takes the exact
+vmapped XLA scan, or the beam-pruned scan when a beam narrower than the
+ploidy's state space is configured."""
 
-import numpy as np
+import json
+import os
+
 import pytest
 
 import jax
-from jax.experimental.pallas import tpu as pltpu
 
 import ahsoka_tpu.thread.dp_jax as dj
 from ahsoka_tpu.config import PhasingConfig
-from ahsoka_tpu.thread.dp_jax import thread_chains_batched
+from ahsoka_tpu.thread.dp_host import thread_chain
+from ahsoka_tpu.thread.dp_jax import select_dp_method, thread_chains_batched
 
 from test_dp import random_dp_inputs
 
-
-_SKIP_INTERPRET = pytest.mark.skipif(
-    jax.default_backend() == "tpu",
-    reason="interpret-mode emulation is a CPU test; real-kernel hardware "
-           "parity runs via scripts/tpu_parity_check.py")
+DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def _norm(paths):
     return [[tuple(sorted(t)) for t in p] for p in paths]
 
 
+@pytest.mark.parametrize("ploidy,beam,expected", [
+    (2, 0, ("scan", 0)), (3, 0, ("scan", 0)), (4, 0, ("scan", 0)),
+    (5, 0, ("scan", 0)),
+    (4, 4096, ("scan", 0)),          # beam >= S = 330: exact scan
+    (5, 1024, ("beam", 1024)),       # S = 2002 > 1024
+    (6, 2048, ("beam", 2048)),
+    (6, 512, ("beam", 512)),
+])
+def test_select_dp_method(ploidy, beam, expected):
+    cfg = PhasingConfig(ploidy=ploidy, dp_beam_width=beam)
+    assert select_dp_method(cfg, ploidy) == expected
+
+
 @pytest.mark.parametrize("ploidy,P,clusters", [(2, 12, 5), (4, 10, 9),
                                                (3, 9, 7)])
-@_SKIP_INTERPRET
-def test_tpu_dispatch_matches_xla_scan(ploidy, P, clusters, monkeypatch):
+def test_batched_dispatch_matches_oracle(ploidy, P, clusters):
     cfg = PhasingConfig(ploidy=ploidy, use_genotypes=(ploidy == 2))
     dps = [random_dp_inputs(P=P, ploidy=ploidy, num_clusters=clusters,
                             seed=50 + i) for i in range(3)]
-    expected = thread_chains_batched(dps, cfg)       # XLA scan (cpu)
-    monkeypatch.setattr(dj.jax, "default_backend", lambda: "tpu")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got = thread_chains_batched(dps, cfg)    # Pallas dispatch
-    finally:
-        monkeypatch.undo()
-    assert _norm(got) == _norm(expected)
+    got = thread_chains_batched(dps, cfg)
+    assert _norm(got) == _norm([thread_chain(dp, cfg) for dp in dps])
 
 
-def test_pallas_failure_falls_back_to_xla_scan(monkeypatch):
-    """A Pallas kernel failure (e.g. a VMEM OOM on hardware) must not
-    abort the run: the dispatch falls back to the XLA scan and produces
-    the same states (VERDICT r2 item 1)."""
-    cfg = PhasingConfig(ploidy=4, use_genotypes=False)
-    dps = [random_dp_inputs(P=10, ploidy=4, num_clusters=8, seed=3 + i)
-           for i in range(2)]
-    expected = thread_chains_batched(dps, cfg)
-
+@pytest.mark.parametrize("keep_going", [False, True])
+def test_dp_error_propagates(keep_going, monkeypatch, tmp_path):
+    """A device DP error is not papered over by another path: the
+    batched DP raises, and under keep_going every chain it hit is
+    counted in chains_failed."""
     def boom(*a, **k):
-        raise RuntimeError("synthetic VMEM OOM")
+        raise RuntimeError("synthetic DP failure")
 
-    monkeypatch.setattr(dj, "_thread_group_pallas", boom)
-    monkeypatch.setattr(dj.jax, "default_backend", lambda: "tpu")
-    try:
-        got = thread_chains_batched(dps, cfg)
-    finally:
-        monkeypatch.undo()
-    assert _norm(got) == _norm(expected)
+    monkeypatch.setattr(dj, "_group_states", boom)
+    if not keep_going:
+        dps = [random_dp_inputs(P=10, ploidy=2, num_clusters=5, seed=3)]
+        with pytest.raises(RuntimeError, match="synthetic DP"):
+            thread_chains_batched(dps, PhasingConfig(ploidy=2))
+        return
+    from ahsoka_tpu.pipeline import run_phase
+    gaf = tmp_path / "golden_diploid.gaf"
+    gaf.write_bytes(open(os.path.join(DATA, "golden_diploid.gaf"),
+                         "rb").read())
+    out = str(tmp_path / "o")
+    run_phase(os.path.join(DATA, "golden_diploid.gfa"), str(gaf), out,
+              PhasingConfig(debug_readset_files=False), keep_going=True)
+    m = json.load(open(out + "-metrics.json"))
+    assert m["chains_phased"] == 0
+    assert m["chains_failed"] > 0
 
 
-@_SKIP_INTERPRET
 @pytest.mark.parametrize("ploidy", [2, 4])
-def test_chain_sharded_pallas_dispatch_matches_scan(ploidy, monkeypatch):
-    """With chain_shards > 1 on TPU, the shard_map body runs the Pallas
-    kernels; states must equal the single-device XLA scan (VERDICT r2
-    item 4).  Forced on CPU via interpret mode + patched backend."""
+def test_chain_sharded_dispatch_matches_single(ploidy):
+    """With chain_shards > 1 every shard runs the method the single
+    device would; states equal the single-device run."""
     if len(jax.devices()) < 2:
         pytest.skip("need 2 devices")
     cfg1 = PhasingConfig(ploidy=ploidy, use_genotypes=(ploidy == 2))
     cfg2 = PhasingConfig(ploidy=ploidy, use_genotypes=(ploidy == 2),
                          chain_shards=2)
     dps = [random_dp_inputs(P=10, ploidy=ploidy, num_clusters=2 * ploidy,
-                            seed=70 + i) for i in range(4)]
-    expected = thread_chains_batched(dps, cfg1)      # XLA scan, 1 device
-    monkeypatch.setattr(dj.jax, "default_backend", lambda: "tpu")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got = thread_chains_batched(dps, cfg2)
-    finally:
-        monkeypatch.undo()
-    assert _norm(got) == _norm(expected)
-
-
-@_SKIP_INTERPRET
-def test_chain_sharded_diploid_superblock_matches_scan(monkeypatch):
-    """The diploid-superblock variant of the sharded Pallas DP (large
-    batches pad to 1024 chains/shard) — forced here with a patched
-    threshold; states must equal the single-device XLA scan."""
-    if len(jax.devices()) < 2:
-        pytest.skip("need 2 devices")
-    cfg1 = PhasingConfig(ploidy=2)
-    cfg2 = PhasingConfig(ploidy=2, chain_shards=2)
-    dps = [random_dp_inputs(P=8, ploidy=2, num_clusters=4, seed=90 + i)
-           for i in range(4)]
-    expected = thread_chains_batched(dps, cfg1)
-    monkeypatch.setattr(dj.jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(dj, "_DIPLOID_SHARD_MIN", 1)
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got = thread_chains_batched(dps, cfg2)
-    finally:
-        monkeypatch.undo()
-    assert _norm(got) == _norm(expected)
+                            seed=70 + i) for i in range(3)]
+    assert thread_chains_batched(dps, cfg2) == \
+        thread_chains_batched(dps, cfg1)
 
 
 def test_ploidy_ceiling_guard():
     """Unsupported ploidies fail fast with the state-space math instead
-    of OOMing mid-run (VERDICT r2 item 8)."""
+    of OOMing mid-run."""
     with pytest.raises(ValueError, match="12376"):
         PhasingConfig(ploidy=6)
     with pytest.raises(ValueError, match="supported range"):
@@ -122,20 +98,22 @@ def test_ploidy_ceiling_guard():
     PhasingConfig(ploidy=5)          # boundary: allowed
 
 
-@_SKIP_INTERPRET
-def test_dispatch_covers_every_position(monkeypatch):
+def test_dispatch_covers_every_position():
     # ragged chain lengths land in different position buckets; each
     # bucket dispatches independently
     cfg = PhasingConfig(ploidy=4, use_genotypes=False)
     dps = [random_dp_inputs(P=p, ploidy=4, num_clusters=8, seed=p)
            for p in (5, 9, 17)]
-    expected = thread_chains_batched(dps, cfg)
-    monkeypatch.setattr(dj.jax, "default_backend", lambda: "tpu")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got = thread_chains_batched(dps, cfg)
-    finally:
-        monkeypatch.undo()
-    assert _norm(got) == _norm(expected)
+    got = thread_chains_batched(dps, cfg)
+    assert _norm(got) == _norm([thread_chain(dp, cfg) for dp in dps])
     assert all(len(p) == dp.num_positions
                for p, dp in zip(got, dps))
+
+
+def test_single_chain_path_matches_batched():
+    """thread_chain_device is a batch of one through the same path."""
+    cfg = PhasingConfig(ploidy=2)
+    dps = [random_dp_inputs(P=14, ploidy=2, num_clusters=5, seed=s)
+           for s in range(3)]
+    batched = thread_chains_batched(dps, cfg)
+    assert batched == [dj.thread_chain_device(dp, cfg) for dp in dps]
